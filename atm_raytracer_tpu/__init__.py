@@ -1,14 +1,15 @@
-"""atm_raytracer_tpu — a TPU-native atmospheric-refraction panorama renderer.
+"""atm_raytracer_tpu — an atmospheric-refraction panorama renderer in JAX
+for the GPU.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the Rust CLI
+A ground-up JAX/XLA re-design of the capabilities of the Rust CLI
 ``atm-raytracer`` (reference: /root/reference). The reference is an
 iterator-and-trait-object pipeline (per-pixel early-exit ray marching on CPU
 threads via rayon); this framework is a *dense tensor program with masks*:
 
 * all rays march in lockstep through a batched fixed-step RK4 integrator
-  (``physics.ray``), the atmosphere reduced to a VMEM-resident log-refractivity
+  (``physics.ray``), the atmosphere reduced to a compact log-refractivity
   derivative table (``physics.atmosphere``);
-* terrain is an HBM-resident tile mosaic sampled with vectorized bilinear
+* terrain is a device-resident tile mosaic sampled with vectorized bilinear
   gathers (``terrain``);
 * the Fast generator's separability (reference src/generator/generators/fast.rs)
   becomes a rank-1 structure: a path tensor [H, N] and a terrain tensor [W, N]
@@ -16,7 +17,8 @@ threads via rayon); this framework is a *dense tensor program with masks*:
   (``ops.combine``);
 * trait dispatch (Object / ColoringMethod / DirectionalCalc) becomes
   enum-indexed masked arithmetic;
-* rayon data parallelism becomes vmap on chip and ``jax.sharding`` across chips
+* rayon data parallelism becomes vmap on one device and ``jax.sharding`` across
+  devices
   (``parallel``).
 
 Public API mirrors the reference's five subcommands: gen, view, output-atm,

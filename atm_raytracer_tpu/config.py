@@ -16,7 +16,6 @@ import math
 from typing import List, Optional, Tuple
 
 import numpy as np
-import yaml
 
 from .models.earth import EarthModel
 from .physics.atmosphere import (
@@ -546,6 +545,8 @@ class Params:
 
 def parse_config(path) -> Config:
     """Load a YAML config file (params.rs:678-692)."""
+    import yaml
+
     with open(path) as f:
         data = yaml.safe_load(f)
     return Config.from_dict(data or {})

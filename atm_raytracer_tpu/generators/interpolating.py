@@ -7,7 +7,7 @@ with step = 1.5 × the minimum per-pixel angular delta (gen_fov_data,
 output pixel bilinearly interpolates its 4 grid corners' trace points with a
 16-case presence match (:183-418).
 
-TPU re-shape (SURVEY §2b mechanism 3): the data-dependent memoization becomes
+Device re-shape (SURVEY §2b mechanism 3): the data-dependent memoization becomes
 dedup-then-dense — the needed grid indices form a contiguous range, so the
 whole grid is computed densely with the same separable machinery as the Fast
 generator (one march per grid row, one terrain scan per grid column), then
@@ -93,9 +93,8 @@ def _interp_weights(present: jnp.ndarray, rem_e: jnp.ndarray, rem_d: jnp.ndarray
     rem_e/rem_d: [...] fractional positions. Returns (ok [...], w [4, ...])
     with w summing to 1 where ok.
 
-    The corner axis LEADS (not trails): on TPU a trailing length-4 axis
-    becomes the 128-wide lane dimension and wastes ~30× of every vector
-    register, so all per-corner planes keep [H, W] minor.
+    The corner axis LEADS (not trails), so all per-corner planes keep
+    [H, W] minor.
     """
     re, rd = rem_e, rem_d
     one = jnp.ones_like(re)
@@ -171,7 +170,7 @@ def _interp_weights(present: jnp.ndarray, rem_e: jnp.ndarray, rem_d: jnp.ndarray
 # above it the same math runs as three fori_loops over the entry axis, or the
 # O(E²) unroll emits tens of thousands of HLO ops (E = 32 for an object
 # scene's K = 8 grid) and XLA's backend blows up superlinearly — measured
-# >30 min CPU / >10 min TPU cold compiles for a 64×48 frame.
+# >30 min CPU cold compiles for a 64×48 frame.
 _GROUP_UNROLL_MAX_E = 8
 
 
@@ -325,16 +324,14 @@ def _interpolate_pixels(grid: HitBuffer, gi, gj, rem_e, rem_d, step_size,
     e_n = 4 * kg  # entries per pixel, corner-major (SEQUENCE), slot ascending
 
     # -- corner fetch: TWO packed row gathers, not 4 corners × 9 fields ------
-    # TPU gather cost is per LAUNCH, not per byte (36 separate jnp.takes
-    # measured ~650 ms at 1080p; the packed pair rows ~25 ms). Every channel
-    # of every slot of a grid cell is packed into one contiguous row, rows of
-    # horizontally-ADJACENT cells are concatenated (the 4 corners are two
-    # adjacent pairs), and one gather per corner row delivers everything.
-    # Within a launch the fetch count is ceil(row_f32/8) sublane groups, so
-    # a no-object scene drops the five channels that are then compile-time
-    # constants (kind = 0, rgba = [0,0,0,terrain_alpha]): 14 → 9 channels
-    # shaves a sublane group off every corner fetch; the constants are
-    # re-broadcast below and fold into the weight arithmetic.
+    # Every channel of every slot of a grid cell is packed into one
+    # contiguous row, rows of horizontally-ADJACENT cells are concatenated
+    # (the 4 corners are two adjacent pairs), and one gather per corner row
+    # delivers everything instead of 36 separate jnp.takes. A no-object
+    # scene drops the five channels that are then compile-time constants
+    # (kind = 0, rgba = [0,0,0,terrain_alpha]): 14 → 9 channels per row;
+    # the constants are re-broadcast below and fold into the weight
+    # arithmetic.
     if has_objects:
         _CH = ("valid", "dlat", "dlon", "distance", "elevation",
                "path_length", "nx", "ny", "nz", "kind", "cr", "cg", "cb",
@@ -505,8 +502,7 @@ def interpolating_core(
     # grid slot count vs OUTPUT slot count are different knobs: an opaque
     # no-object scene puts at most ONE trace point in any grid cell, so a
     # second grid slot is always-invalid ballast that doubles the packed
-    # corner-gather rows (the gather pays ~10 ns per 8-f32 sublane group per
-    # pixel — measured 2×150 ms at 1080p with kg=2). k_out keeps the full
+    # corner-gather rows. k_out keeps the full
     # 2·max_hits so the 4 corner-major groups still all fit: outputs are
     # bit-identical (invalid entries never join groups).
     grid_hits = (
@@ -589,7 +585,7 @@ def render_interpolating(
     """Full InterpolatingRectilinear render (:110-161).
 
     ``progress`` (if given) receives whole-percent completion values — the
-    TPU analog of the reference's per-percent pixel counter
+    device analog of the reference's per-percent pixel counter
     (interpolating_rectilinear.rs:141-150), emitted from the grid march scan
     on callback-capable backends and always closed with a final 100.
 

@@ -30,7 +30,6 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-import yaml
 
 from ..config import Config
 from ..generators.base import HitBuffer, RenderResult
@@ -46,8 +45,7 @@ def _pack_artifact(valid, key, dlat, dlon, elevation, path_length, normal,
     Returns (bits u32 [ceil(P/32)], count i32, key/dlat/dlon/elev/plen f32
     [P], normal f32 [P,3], kind i32 [P], rgba f32 [P,4]) with valid entries
     compacted to the front; callers fetch only the first ``count`` rows
-    (kind narrows to u8 host-side — sub-u32 scatters are unproven on the
-    remote TPU toolchain, u32/f32 are exercised daily by meta/pack.py).
+    (kind narrows to u8 host-side, so the device scatters only u32/f32).
     """
     vflat = valid.reshape(-1)
     p = vflat.shape[0]
@@ -193,6 +191,8 @@ def _encode_reference(config: Config, result: RenderResult, terrain) -> bytes:
 
 
 def _savez(fh, config, result, hits):
+    import yaml
+
     from ..generators.base import fetch_flat_many
 
     (bits, count, key_c, dlat_c, dlon_c, el_c, pl_c, normal_c, kind_c,
@@ -281,6 +281,8 @@ def load_metadata(path) -> Tuple[Config, RenderResult]:
         magic = fh.read(2)
     if magic != b"PK":  # npz is a zip archive; everything else is bincode
         return _load_bincode(path)
+    import yaml
+
     with np.load(path, allow_pickle=False) as z:
         version = int(z["format_version"])
         if version > FORMAT_VERSION:

@@ -1,6 +1,6 @@
 """Earth models: geometry services for 8 model variants.
 
-Re-implements (TPU-first) the reference's ``EarthModel``
+Re-implements (device-first) the reference's ``EarthModel``
 (src/utils/earth_model/mod.rs:19-145) and its geodesic calculators
 (src/utils/earth_model/directional_calc.rs):
 
@@ -14,7 +14,7 @@ Re-implements (TPU-first) the reference's ``EarthModel``
   rotation / Vincenty direct / azimuthal-equidistant line / lat-scaled flat
   (directional_calc.rs:9-185).
 
-TPU-first redesign notes (vs the reference's trait objects + f64):
+Device-first redesign notes (vs the reference's trait objects + f64):
 
 * Model kind is config-static, so dispatch is plain Python at trace time —
   no ``lax.switch`` needed.

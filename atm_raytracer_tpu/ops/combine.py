@@ -1,7 +1,7 @@
 """Crossing-detection combine: path tensor × terrain tensor → hit keys.
 
-THE hot loop of the reference, re-shaped for TPU. The reference marches each
-pixel's ray through ``get_single_pixel`` with early exit
+THE hot loop of the reference, re-shaped for the device. The reference
+marches each pixel's ray through ``get_single_pixel`` with early exit
 (src/generator/generators/utils.rs:201-289): per segment k, a terrain
 crossing exists iff diff1·diff2 < 0 with diff = ray_elev − terrain_elev at
 the segment ends, hit position lerped by prop = diff1/(diff1−diff2)
@@ -16,9 +16,7 @@ becomes a min-reduction (first crossing) or a running top-K merge
 
 Memory: the [H, W, C] diff cube is never materialized globally — segments are
 processed in chunks of C inside a ``lax.scan`` so XLA fuses
-broadcast−compare−reduce per chunk. (A fused Pallas kernel with tile-level
-early exit lives in experimental/combine_pallas.py — not the default on
-this deployment; see experimental/__init__.py.)
+broadcast−compare−reduce per chunk.
 
 The reference's path-death rule (gen_path_cache stops one element after
 h < −1000, utils.rs:159-171) is applied via a per-ray "dead" prefix mask:
@@ -56,9 +54,9 @@ def ray_alive_mask(ray_h: jnp.ndarray) -> jnp.ndarray:
 def k_smallest(cand: jnp.ndarray, k: int) -> jnp.ndarray:
     """K smallest of cand[..., C], ascending, by K successive masked mins.
 
-    ``lax.top_k`` lowers to a full per-row SORT on TPU — ruinous inside the
-    combine's segment-chunk scan. K passes of min-reduce + mask are pure
-    VPU arithmetic (K is 2-4). Duplicate sentinel values collapse to the
+    ``lax.top_k`` is a per-row sort; inside the combine's segment-chunk
+    scan K passes of min-reduce + mask are cheaper elementwise arithmetic
+    (K is 2-4). Duplicate sentinel values collapse to the
     sentinel, which is exactly right for NO_HIT/NO_HIT_SEG.
     """
     outs = []
@@ -167,7 +165,8 @@ def terrain_crossing_segments(
         return keys, None
 
     keys0 = jnp.full((h_n, w_n, max_hits), NO_HIT_SEG, jnp.int32)
-    keys, _ = jax.lax.scan(chunk_body, keys0, jnp.arange(n_chunks))
+    with jax.named_scope("combine"):
+        keys, _ = jax.lax.scan(chunk_body, keys0, jnp.arange(n_chunks))
     return keys
 
 
@@ -275,8 +274,8 @@ def _gather_pairs(field: jnp.ndarray, axis_iota: int, ki: jnp.ndarray):
 
     field: [R, N(,D)] per-row sequences; ki: [...] int32 with the row index
     given by ``broadcasted_iota(axis_iota)`` over ki's shape. Adjacent-pair
-    layout puts both endpoints in one contiguous-row gather — TPU gather
-    cost is per launch, not per byte. Returns (lo, hi) shaped ki(+D).
+    layout puts both endpoints in one contiguous-row gather. Returns
+    (lo, hi) shaped ki(+D).
     """
     n = field.shape[1]
     r = jax.lax.broadcasted_iota(jnp.int32, ki.shape, axis_iota)

@@ -31,8 +31,8 @@ Initial conditions for elevation angle e (radians, from the local horizontal):
 
 Integrator: classic RK4 with fixed step dx = simulation_step, matching the
 reference's accuracy knob (README.md:219-222). l(h) comes from a uniform-grid
-lookup table (f32) built on host from the f64 atmosphere — small enough for
-VMEM (~10k entries for a 10 km altitude span at 1 m spacing).
+lookup table (f32) built on host from the f64 atmosphere (~10k entries for a
+10 km altitude span at 1 m spacing).
 
 Path length: accumulated exactly like the reference's ``calc_dist``
 (utils.rs:42-53): flat sqrt(dx²+dh²); spherical scales dx by (h_avg+R)/R.
@@ -83,7 +83,7 @@ class RefractionTable:
     pairs: jnp.ndarray  # [n-1, 2] f32: (values[i], values[i+1]) — one-take lerp
     # gather-free compiled form: l(h) as piecewise Chebyshev polynomials,
     # split at the atmosphere's own discontinuities (STATIC aux — nested
-    # tuples of floats — so it bakes into jit/Pallas programs as constants).
+    # tuples of floats — so it bakes into jit programs as constants).
     # None when the profile resists a compact fit (then the table gathers).
     poly: Optional[Tuple] = None  # ((h_lo, h_hi, (c0, c1, ...)), ...)
 
@@ -201,11 +201,10 @@ def _fit_piecewise_cheb(
 
 
 def eval_l_poly(poly: Tuple, h: jnp.ndarray) -> jnp.ndarray:
-    """Evaluate piecewise-Chebyshev l(h) — pure VPU math, zero gathers.
+    """Evaluate piecewise-Chebyshev l(h) — elementwise math, zero gathers.
 
-    Works identically under jit and inside Pallas kernels (the coefficients
-    are compile-time constants). Queries clamp to the fitted range, matching
-    ``lookup``'s clamp semantics.
+    The coefficients are compile-time constants. Queries clamp to the
+    fitted range, matching ``lookup``'s clamp semantics.
     """
     h = jnp.clip(h, poly[0][0], poly[-1][1])
     out = jnp.zeros_like(h)
@@ -259,8 +258,8 @@ def _rk4_step(h, v, dx, table, radius, straight):
     carried slope (h + 0.5·dx·v, h + dx·v). The true stage arguments differ
     by O(dx²·h'') ≈ centimeters, and l(h) enters multiplied by small
     curvature terms, so the induced error is far below the integrator
-    tolerance — while per-step gather *launches*, not bytes, bound a scan's
-    cost on TPU (moot for the poly path, kept for the table path).
+    tolerance, and the table path gathers once per step instead of four
+    times.
     """
     bend = table is not None and not straight
     if bend:
@@ -286,6 +285,20 @@ def _rk4_step(h, v, dx, table, radius, straight):
     h_new = h + dx / 6.0 * (k1h + 2.0 * k2h + 2.0 * k3h + k4h)
     v_new = v + dx / 6.0 * (k1v + 2.0 * k2v + 2.0 * k3v + k4v)
     return h_new, v_new
+
+
+# Scan shape on the GPU: coarse windows per march_scan* iteration
+# (Rectilinear) and the unroll of march_rays' scan (Fast,
+# InterpolatingRectilinear). Timed warm at the 1080p/200 km headline on an
+# H100 80GB HBM3 at 700 W: Fast 15.2 ms with unroll 8 against 17.1 ms with
+# 1; Rectilinear 39.1-40.5 ms with group 8 against 43.2-44.7 ms with 1. On
+# the CPU (tests) both stay 1: there they only add compile time.
+GPU_SCAN_GROUP = 8
+GPU_MARCH_UNROLL = 8
+
+
+def _scan_group() -> int:
+    return GPU_SCAN_GROUP if jax.default_backend() == "gpu" else 1
 
 
 def march_coarse(step: float) -> int:
@@ -474,7 +487,7 @@ def march_scan_light(
     coarse = max(1, min(int(coarse), n_steps))
     n_coarse = -(-n_steps // coarse)
     if group <= 0:
-        group = 8 if jax.default_backend() != "cpu" else 1
+        group = _scan_group()
     group = max(1, min(int(group), n_coarse))
     n_outer = -(-n_coarse // group)
     dx = jnp.float32(step * coarse)
@@ -546,10 +559,10 @@ def march_scan(
     (the culled Rectilinear captures candidate-block states this way).
 
     ``group`` packs that many coarse windows into ONE scan iteration (the
-    consumer still sees per-window calls): a 500-iteration scan of small
-    fused kernels is dispatch-overhead-bound on TPU, so grouping cuts the
-    sequential launch count ~G× at ~G× trace size. 0 = auto (8 on TPU, 1
-    elsewhere — CPU test runs only pay compile time for it).
+    consumer still sees per-window calls): a long scan of small fused
+    kernels pays per-iteration loop overhead, so grouping cuts the
+    sequential iteration count ~G× at ~G× trace size. 0 = auto
+    (``GPU_SCAN_GROUP`` on the GPU, 1 elsewhere).
 
     Returns the final consumer carry.
     """
@@ -560,7 +573,7 @@ def march_scan(
     coarse = max(1, min(int(coarse), n_steps))
     n_coarse = -(-n_steps // coarse)
     if group <= 0:
-        group = 8 if jax.default_backend() != "cpu" else 1
+        group = _scan_group()
     group = max(1, min(int(group), n_coarse))
     n_outer = -(-n_coarse // group)
 
@@ -669,7 +682,7 @@ def march_rays(
         node; the ODE solution is polynomial-smooth between atmosphere-layer
         kinks, so the fine-grid error is far below the integrator's own
         tolerance (validated in tests/test_ray.py::test_coarse_march_parity).
-        Cuts the sequential chain N → N/C, the TPU latency bottleneck.
+        Cuts the sequential chain N → N/C.
 
     Returns:
       h:        [B, N+1] ray altitude at x = k*step.
@@ -704,19 +717,18 @@ def march_rays(
             scan_progress_emit(i, n_coarse, stride)
         return (h_new, v_new), (h_new, v_new)
 
-    # unroll on TPU: the per-iteration state is a few [B] vectors, so
-    # loop overhead dominates an un-unrolled scan (~140 µs/step
-    # measured). On CPU (tests) the unroll only bloats compile time.
-    # (A one-launch Pallas march exists in experimental/march_pallas.py —
-    # see experimental/__init__.py for why it is not the default here.)
+    # the per-iteration state is a few [B] vectors, so loop overhead
+    # matters; the GPU unrolls by GPU_MARCH_UNROLL.
     # xs stays None when progress is off so the HLO — and the persistent
     # compile cache entry — is identical to a march without the hook.
     xs = jnp.arange(n_coarse, dtype=jnp.int32) if progress else None
-    unroll = min(8, n_coarse) if jax.default_backend() != "cpu" else 1
-    (_, _), (hs, vs) = jax.lax.scan(
-        body, (alt, v0), xs, length=None if progress else n_coarse,
-        unroll=unroll,
-    )
+    unroll = (min(GPU_MARCH_UNROLL, n_coarse)
+              if jax.default_backend() == "gpu" else 1)
+    with jax.named_scope("march"):
+        (_, _), (hs, vs) = jax.lax.scan(
+            body, (alt, v0), xs, length=None if progress else n_coarse,
+            unroll=unroll,
+        )
     h_nodes = jnp.concatenate([alt[None], hs], axis=0)  # [Nc+1, B]
     v_nodes = jnp.concatenate([v0[None], vs], axis=0)
 

@@ -7,12 +7,13 @@ nearest-pixel angle lookup with the 1.5×-gap validity rule (mod.rs:39-80),
 the magenta eye-level line (elevation 0°) and — on flat shapes with
 refraction — the blue flat-Earth horizon at arccos(1/n(h_obs))
 (mod.rs:325-365,416-431). Text uses DejaVuSans (same face the reference
-embeds, via matplotlib's bundled copy) through PIL.
+embeds; ``FONT_PATH``) through PIL.
 """
 
 from __future__ import annotations
 
 import math
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -25,14 +26,13 @@ EYE_LEVEL_COLOR = (255, 128, 255)  # mod.rs:430
 FLAT_HORIZON_COLOR = (0, 128, 255)  # mod.rs:427
 
 
-def _font(size: int = 15):
-    try:
-        import matplotlib
+# DejaVuSans cut down to the glyphs a tick label uses (digits, sign,
+# point); license in fonts/LICENSE_DEJAVU
+FONT_PATH = Path(__file__).resolve().parent / "fonts" / "DejaVuSans-digits.ttf"
 
-        path = f"{matplotlib.get_data_path()}/fonts/ttf/DejaVuSans.ttf"
-        return ImageFont.truetype(path, size)
-    except Exception:
-        return ImageFont.load_default()
+
+def _font(size: int = 15):
+    return ImageFont.truetype(str(FONT_PATH), size)
 
 
 def num_decimals(x: float) -> int:

@@ -274,9 +274,9 @@ def sample_terrain_data(
       * "gradient" (default): normal from the exact gradient of the sampled
         bilinear terrain patch — reuses the elevation taps, zero extra
         gathers. This is the analytic limit of the reference's central
-        difference as the arm length → 0 and is the TPU-fast path (the
-        reference's ±15 m arms cost 4 extra bilinear samples per point, 5×
-        the HBM gather traffic of the whole terrain stage).
+        difference as the arm length → 0 (the reference's ±15 m arms cost
+        4 extra bilinear samples per point, 5× the gather traffic of the
+        whole terrain stage).
       * "reference": the reference's find_normal (utils.rs:15-40) — central
         differences of elevation ±15 m N/S/E/W via closed-form angular
         offsets (models.earth.normal_offsets). Differs from "gradient" only

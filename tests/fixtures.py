@@ -73,6 +73,30 @@ def make_bilin(grid, la0, lo0):
     return bilin
 
 
+def make_mosaic_bilin(grids):
+    """f64 bilinear sampler over a mosaic of 1° tiles.
+
+    grids: {(lat0, lon0): inclusive post grid}. Each sample reads the tile
+    at (floor(lat), floor(lon)) with ``make_bilin``'s semantics; samples in
+    no tile read 0, the device mosaic's fill outside its tiles.
+    """
+    samplers = {k: make_bilin(g, *k) for k, g in grids.items()}
+
+    def bilin(lat, lon):
+        lat, lon = np.broadcast_arrays(np.asarray(lat, np.float64),
+                                       np.asarray(lon, np.float64))
+        la = np.floor(lat).astype(int)
+        lo = np.floor(lon).astype(int)
+        out = np.zeros(lat.shape, np.float64)
+        for (a, b), f in samplers.items():
+            m = (la == a) & (lo == b)
+            if m.any():
+                out[m] = f(lat[m], lon[m])
+        return out
+
+    return bilin
+
+
 def _first_crossing(diff, terr, step, margin):
     """Crossing test + hit lerp (utils.rs:220-240) over the last axis.
 
@@ -165,7 +189,7 @@ def f64_march_spherical(atm, wavelength, h0, elev_rad, step, n, radius,
 
 def f64_sphere_refracted_oracle(grid, lat0, lon0, alt_rel, el_rad, az_rad,
                                 step, max_distance, atm, wavelength,
-                                radius, margin=0.2):
+                                radius, margin=0.2, bilin=None, ray=None):
     """Independent f64 re-derivation of the SPHERICAL REFRACTED pipeline
     (the headline physics): f64 RK4 ray march with the exact atmosphere,
     great-circle geodesics by the standard navigation formula (an
@@ -175,8 +199,14 @@ def f64_sphere_refracted_oracle(grid, lat0, lon0, alt_rel, el_rad, az_rad,
     el_rad: [H] per-row elevations; az_rad: [W] per-column azimuths (the
     Fast generator's separable camera, fast.rs:111-125). Returns
     (has_hit, distance, hit_elevation, robust) of shape [H, W].
+
+    ``bilin`` replaces the single-tile sampler over ``grid`` (a mosaic:
+    ``make_mosaic_bilin``); ``ray`` is a precomputed
+    ``f64_march_spherical`` result for ``el_rad``, so column chunks of one
+    frame share one march.
     """
-    bilin = make_bilin(grid, int(np.floor(lat0)), int(np.floor(lon0)))
+    if bilin is None:
+        bilin = make_bilin(grid, int(np.floor(lat0)), int(np.floor(lon0)))
     alt0 = float(bilin(lat0, lon0)) + alt_rel
     n = int(np.ceil(max_distance / step))
     x = np.arange(n + 1) * step
@@ -192,8 +222,9 @@ def f64_sphere_refracted_oracle(grid, lat0, lon0, alt_rel, el_rad, az_rad,
                             np.cos(delta) - np.sin(la) * sin_la2)
     terr = bilin(np.rad2deg(lat_s), np.rad2deg(lon_s))  # [W, n+1]
 
-    ray = f64_march_spherical(atm, wavelength, alt0, el_rad, step, n,
-                              radius)  # [H, n+1]
+    if ray is None:
+        ray = f64_march_spherical(atm, wavelength, alt0, el_rad, step, n,
+                                  radius)  # [H, n+1]
     diff = ray[:, None, :] - terr[None, :, :]  # [H, W, n+1]
     return _first_crossing(diff, np.broadcast_to(terr[None], diff.shape),
                            step, margin=margin)

@@ -44,7 +44,8 @@ def cfg_path(tmp_path_factory, terrain_dir):
 
 
 def _run(*args, timeout=600):
-    env = {**os.environ, "PYTHONPATH": str(REPO), "ATM_RAYTRACER_PLATFORM": "cpu"}
+    env = {**os.environ, "PYTHONPATH": str(REPO), "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_backend_optimization_level=1"}
     r = subprocess.run(
         [sys.executable, "-m", "atm_raytracer_tpu.cli", *args],
         capture_output=True, text=True, env=env, timeout=timeout,
@@ -152,3 +153,37 @@ def test_output_atm_humidity_column(tmp_path, terrain_dir):
         if ln and ln[0].isdigit()
     ])
     np.testing.assert_allclose(rows[:, 3], [0.8, 0.5, 0.2], atol=1e-9)
+
+
+_CACHE_PROBE = """
+import jax, jax.numpy as jnp
+from atm_raytracer_tpu import cli
+used = cli._enable_compilation_cache()
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+jax.jit(lambda x: jnp.sin(x) * 2.0 + 1.0)(jnp.arange(8.0)).block_until_ready()
+print(used)
+print(jax.config.jax_compilation_cache_dir)
+"""
+
+
+@pytest.mark.parametrize("env_set", [True, False], ids=["env_set", "env_unset"])
+def test_compile_cache_dir(tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR, when set, is where the cache goes and the
+    CLI sets no other; unset, the cache is the checkout's fixed directory,
+    never a path under HOME or the XDG cache."""
+    env = {**os.environ, "PYTHONPATH": str(REPO), "JAX_PLATFORMS": "cpu",
+           "HOME": str(tmp_path / "home"),
+           "XDG_CACHE_HOME": str(tmp_path / "xdg")}
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    want = str(REPO / ".jax_cache")
+    if env_set:
+        want = str(tmp_path / "cache")
+        env["JAX_COMPILATION_CACHE_DIR"] = want
+    r = subprocess.run([sys.executable, "-c", _CACHE_PROBE], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    used, configured = r.stdout.split()[-2:]
+    assert used == configured == want
+    assert any(Path(want).iterdir()), "nothing cached"
+    assert not (tmp_path / "home").exists()
+    assert not (tmp_path / "xdg").exists()

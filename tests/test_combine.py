@@ -1,13 +1,10 @@
-"""Crossing-detection combine: XLA reference semantics + Pallas equivalence."""
+"""Crossing-detection combine: XLA semantics against a brute-force loop."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
 from atm_raytracer_tpu.ops import combine
-from atm_raytracer_tpu.experimental.combine_pallas import (
-    first_crossing_pallas,
-)
 
 
 def brute_force_keys(ray_h, terr, n_seg, max_hits):
@@ -74,44 +71,6 @@ def test_path_death_truncates(fan):
     assert np.isfinite(keys[0, 0, 0])
     assert 9.0 <= keys[0, 0, 0] < 10.0
     assert not np.isfinite(keys[0, 0, 1])
-
-
-def test_pallas_interpret_matches_xla(fan):
-    ray, terr, n = fan
-    expect = np.asarray(combine.terrain_crossing_keys(ray, terr, n, 1, chunk=16))
-    got = np.asarray(
-        first_crossing_pallas(jnp.asarray(ray), terr, n, interpret=True)
-    )
-    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
-
-
-def test_pallas_interpret_death_semantics():
-    n = 50
-    ray = np.full((1, n + 1), 10.0, np.float32)
-    ray[0, 10:] = -2000.0
-    ray[0, 20:] = 50.0
-    terr = np.zeros((1, n + 1), np.float32)
-    got = np.asarray(
-        first_crossing_pallas(jnp.asarray(ray), terr, n, interpret=True)
-    )
-    assert 9.0 <= got[0, 0, 0] < 10.0
-
-
-def test_pallas_no_spurious_crossing_on_deep_terrain():
-    """A ray that dies (h < -1000) while still ABOVE bathymetric terrain
-    must stay hit-free past the death prefix: a sample-clobber encoding
-    (-1e9) would fabricate a crossing against the -1500 m floor on the
-    first clobbered segment. XLA path is the oracle."""
-    n = 50
-    ray = np.full((1, n + 1), 10.0, np.float32)
-    ray[0, 10:] = -1100.0  # dead from sample 10, above the -1500 m floor
-    terr = np.full((1, n + 1), -1500.0, np.float32)
-    expect = np.asarray(combine.terrain_crossing_keys(ray, terr, n, 1, chunk=16))
-    assert not np.isfinite(expect[0, 0, 0])  # oracle: no crossing
-    got = np.asarray(
-        first_crossing_pallas(jnp.asarray(ray), terr, n, interpret=True)
-    )
-    assert not np.isfinite(got[0, 0, 0])
 
 
 def test_gathers_lerp(fan):

@@ -151,9 +151,9 @@ def test_cli_gen(tmp_path, terrain_dir):
     cfg_path = _write_config(tmp_path, terrain_dir)
     out_png = tmp_path / "out.png"
     meta = tmp_path / "m.npz"
-    env = {"PYTHONPATH": str(REPO), "ATM_RAYTRACER_PLATFORM": "cpu"}
     import os
-    env = {**os.environ, **env}
+    env = {**os.environ, "PYTHONPATH": str(REPO), "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_backend_optimization_level=1"}
     r = subprocess.run(
         [sys.executable, "-m", "atm_raytracer_tpu.cli", "gen",
          "-c", str(cfg_path), "--output-meta", str(meta)],

@@ -1,7 +1,7 @@
 """Golden-image regression suite (SURVEY §4).
 
 The reference's de-facto validation is visual — rendered panoramas compared
-against photographs (/root/reference/README.md:9-12). The TPU build replaces
+against photographs (/root/reference/README.md:9-12). This rebuild replaces
 that workflow with committed goldens: small CPU-rendered frames for all three
 generators across four scene flavors, plus one annotated frame, compared
 BIT-EXACT. This is the guard against all numeric paths drifting together —
@@ -17,6 +17,8 @@ visual look) and commit them together with the change that moved the output.
 Goldens are rendered on the CPU backend (conftest forces it) so the suite is
 deterministic for this environment; a backend/XLA upgrade that moves f32
 codegen is expected to show up here and should be re-pinned consciously.
+``chip_smoke.py`` compares the same scenes rendered on a GPU with these
+goldens within a tolerance.
 """
 
 import os
@@ -179,13 +181,10 @@ def test_golden(generator, scene, terrain_dir, terrain):
     _check_golden(f"{generator.lower()}_{scene}", result.image)
 
 
-def test_golden_annotated(terrain_dir, terrain):
-    """One annotated frame: ticks + eye-level + labels (renderer/mod.rs:39-365)."""
-    from atm_raytracer_tpu.config import Config
-    from atm_raytracer_tpu.render.annotate import annotate_image
-
+def annotated_config(terrain_folder: str) -> dict:
+    """The annotated golden frame: ticks + eye level + labels."""
     cfg = _base_config()
-    cfg["scene"]["terrain_folder"] = str(terrain_dir)
+    cfg["scene"]["terrain_folder"] = terrain_folder
     cfg["output"].update({
         "width": 160, "height": 100,
         "ticks": [
@@ -200,7 +199,16 @@ def test_golden_annotated(terrain_dir, terrain):
         ],
         "show_eye_level": True,
     })
-    params = Config.from_dict(cfg).into_params(terrain)
+    return cfg
+
+
+def test_golden_annotated(terrain_dir, terrain):
+    """One annotated frame: ticks + eye-level + labels (renderer/mod.rs:39-365)."""
+    from atm_raytracer_tpu.config import Config
+    from atm_raytracer_tpu.render.annotate import annotate_image
+
+    params = Config.from_dict(
+        annotated_config(str(terrain_dir))).into_params(terrain)
 
     from atm_raytracer_tpu.generators import render_fast
 

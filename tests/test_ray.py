@@ -259,24 +259,6 @@ def test_l_poly_matches_table(table):
     assert cum < 1e-7
 
 
-def test_pallas_march_interpret_matches_scan(table):
-    """The Pallas march kernel (one launch, piecewise-Chebyshev l(h), no
-    gathers) must reproduce the XLA scan nodes; interpret mode runs on CPU."""
-    from atm_raytracer_tpu.experimental.march_pallas import march_nodes_pallas as _march_nodes_pallas
-    from atm_raytracer_tpu.physics.ray import initial_slope
-
-    elev = jnp.deg2rad(jnp.asarray([-0.5, -0.1, 0.0, 0.1, 1.0], jnp.float32))
-    alt = jnp.full_like(elev, 100.0)
-    v0 = initial_slope(alt, elev, SPHERE)
-    hp, vp = _march_nodes_pallas(
-        alt, v0, 400.0, 500, table.poly, R, interpret=True
-    )
-    # XLA scan reference at the same coarse step (also uses table.poly)
-    hs, _ = march_rays(100.0, elev, 400.0, 500, SPHERE, table, False)
-    np.testing.assert_allclose(np.asarray(hp[1:]).T, np.asarray(hs)[:, 1:],
-                               atol=2e-2)
-
-
 def test_straight_dense_flat_and_clamp():
     from atm_raytracer_tpu.physics.ray import _straight_dense
 
